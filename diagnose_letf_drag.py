@@ -1,10 +1,7 @@
 """TQQQ drag-source isolation (see letf_tpu/diagnose.py)."""
-import jax
-from letf_tpu.utils.backend import ensure_backend  # noqa: E402
-
-ensure_backend()
-jax.config.update("jax_compilation_cache_dir", "/tmp/letf_tpu_jax_cache")
 from letf_tpu.diagnose import diagnose_letf_drag
+from letf_tpu.utils.compile_cache import enable_compile_cache
 
 if __name__ == "__main__":
+    enable_compile_cache()
     diagnose_letf_drag()

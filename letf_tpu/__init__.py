@@ -1,16 +1,15 @@
-"""letf_tpu: TPU-native Leveraged-ETF Monte Carlo framework (JAX/XLA/Pallas).
+"""letf_tpu: Leveraged-ETF Monte Carlo framework in JAX, compiled by XLA.
 
 A ground-up rebuild of the capabilities of the reference CPU simulator
-(djbm10/LETF-Monte-Carlo) designed for TPU hardware:
+(djbm10/LETF-Monte-Carlo) for an accelerator (an NVIDIA GPU; the test
+suite runs it on the CPU):
 
-- path generation is a fused ``lax.scan`` over days with a VMEM-resident
-  carry, vmapped over trials and sharded over an ICI mesh (pjit)
+- path generation is a fused ``lax.scan`` over days with a small per-trial
+  carry, batched over trials and sharded over a 1-D device mesh
 - all randomness is counter-based threefry keyed by (trial, day, stream)
 - the 19 trading strategies run as a batched strategy axis inside a single
   equity scan; only summary tensors (final wealth, max drawdown, trade
-  counts) leave HBM
-- the hot buy-and-hold compounding path is a Pallas TPU kernel with on-chip
-  PRNG
+  counts) leave device memory
 - the tax engine preserves exact IRC §1222/§1211/§1212 scalar semantics
   (6/6 golden tests) and adds a vectorized (trial, year) device path
 

@@ -9,7 +9,7 @@ SimModel builder and any reference-format consumer can use them:
 - calibrate_vix_dynamics            : per-regime AR(1) phi / noise / jump
 - calibrate_joint_return_model      : per-regime mu/cov/nu + GARCH/DCC
   parameters. The reference's optional `arch` dependency is replaced by a
-  TPU-native route: an optax/jax maximum-likelihood GARCH(1,1) fit
+  JAX route: an optax/jax maximum-likelihood GARCH(1,1) fit
   (device-jitted) with the reference's autocorrelation proxy as fallback.
 - calibrate_funding_spread_model    : ridge regression of implied borrow
   spread on VIX-stress / inverted-curve / liquidity / credit covariates
@@ -214,7 +214,7 @@ def calibrate_vix_dynamics(df: pd.DataFrame, regimes: np.ndarray) -> Dict:
 def fit_garch11_mle(returns: np.ndarray, nu: float = 8.0,
                     maxiter: int = 300):
     """GARCH(1,1) by Student-t maximum likelihood on device (jit + optax),
-    the TPU-native replacement for the reference's optional `arch`
+    the JAX replacement for the reference's optional `arch`
     dependency (which also fits Student-t GARCH — calibration.py:405-440).
 
     The t-likelihood matters: Gaussian QML on fat-tailed returns inflates

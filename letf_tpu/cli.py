@@ -14,7 +14,7 @@ import os
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="letf_tpu",
-        description="TPU-native Leveraged-ETF Monte Carlo framework")
+        description="Leveraged-ETF Monte Carlo framework (JAX)")
     p.add_argument("--interactive", action="store_true",
                    help="enable interactive date/tax menus")
     p.add_argument("--sims", type=int, default=None,
@@ -52,12 +52,9 @@ def main(argv=None) -> None:
     if not args.interactive:
         os.environ["LETF_NON_INTERACTIVE"] = "1"
 
-    import jax
+    from letf_tpu.utils.compile_cache import enable_compile_cache
 
-    from letf_tpu.utils.backend import ensure_backend
-
-    ensure_backend()
-    jax.config.update("jax_compilation_cache_dir", "/tmp/letf_tpu_jax_cache")
+    enable_compile_cache()
 
     from letf_tpu import config as cfg
 

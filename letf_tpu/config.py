@@ -1,4 +1,4 @@
-"""Configuration for the TPU-native LETF Monte Carlo framework.
+"""Configuration for the JAX LETF Monte Carlo framework.
 
 Mirrors the semantics of the reference configuration (see
 ``/root/reference/letf/config.py``: ASSETS at config.py:62, STRATEGIES at
@@ -146,12 +146,17 @@ USE_MOMENT_MATCHING = True
 USE_LATIN_HYPERCUBE = False
 DEBUG = False
 
-# Device batch used by the sharded MC driver: trials are processed in chunks
-# of this many paths to bound HBM footprint of the [chunk, days] tensors.
-# 16384 fits 30y horizons in v5e HBM; bigger chunks amortize per-dispatch
-# overhead (measured 381 -> 466M path-days/s from 16k to 64k at 10y), and
-# run_monte_carlo callers can pass chunk_size explicitly for short horizons.
+# Trials per device per chunk in the sharded MC runner: a chunk over an
+# n-device mesh holds n times this many paths, so every device runs the
+# same [DEVICE_CHUNK_TRIALS, days] shapes whatever the mesh: it bounds the
+# device-memory footprint, and each device compiles the program a
+# one-device run uses. run_monte_carlo callers can pass chunk_size
+# explicitly.
 DEVICE_CHUNK_TRIALS = 16384
+
+# Chunks per device dispatch in the resident loop (a lax.scan over trial
+# chunks inside one program; parallel/mc_runner.py).
+CHUNKS_PER_DISPATCH = 4
 
 # ============================================================================
 # Regimes (reference config.py:168-176)
@@ -303,7 +308,7 @@ def print_banner() -> None:
     import jax
     n_dev = len(jax.devices())
     print(f"\n{'=' * 80}")
-    print("LETF MONTE CARLO - TPU-NATIVE (JAX/XLA/Pallas)")
+    print("LETF MONTE CARLO (JAX/XLA)")
     print(f"{'=' * 80}")
     print("Engine: fused lax.scan path generation, vmapped trials, pjit-sharded mesh")
     print("  1. Volatility drag: correct geometric compounding of L*r - costs")

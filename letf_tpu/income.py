@@ -87,7 +87,7 @@ def simulate_income_paths_jax(key, base_income: float, years: int,
                               n_paths: int, career_stage: str = "mid",
                               aggressive: bool = True):
     """Device-side batched income paths: one lax.scan over years carrying
-    [N]-vector (income, recovering) state — the TPU-native formulation of
+    [N]-vector (income, recovering) state — the device-side formulation of
     simulate_income_trajectory (same career constants and event cascade,
     counter-based streams instead of the NumPy generator). Returns
     [n_paths, years + 1]."""

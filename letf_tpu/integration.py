@@ -254,7 +254,7 @@ def process_trades_with_wired_engine(
         "total_st_gains": sum(y["taxable_st"] for y in yearly_results),
         "total_lt_gains": sum(y["taxable_lt"] for y in yearly_results),
         "final_cf": {"st": st_cf, "lt": lt_cf},
-        "engine_version": "tpu_v1_marginal_rates",
+        "engine_version": "jax_v1_marginal_rates",
         "used_proper_marginal_rates": True,
         "debug_enabled": debug,
         "income_trajectory": {
@@ -320,7 +320,7 @@ def generate_ultimate_report(results: Dict[str, Dict],
                              initial_capital: float, horizon: int) -> None:
     """Ranked Roth/taxable report (reference integration.py:641-719)."""
     print("\n" + "=" * 100)
-    print(f"{horizon}-YEAR HORIZON - WIRED TAX ENGINE (TPU build)")
+    print(f"{horizon}-YEAR HORIZON - WIRED TAX ENGINE (JAX build)")
     print("=" * 100)
 
     print("\n> ROTH IRA COMPATIBLE (Tax-Free)")

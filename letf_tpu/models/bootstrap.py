@@ -1,4 +1,4 @@
-"""Block bootstrap: historical-block return generation, TPU-reformulated.
+"""Block bootstrap: historical-block return generation, device-reformulated.
 
 The reference stitches variable-length blocks in a Python while-loop with
 momentum-biased and Gaussian-kernel-weighted block selection
@@ -285,7 +285,8 @@ def sample_bootstrap_returns(pools: BootstrapPools, regime_path, key,
         corr_high = jnp.asarray(np.linalg.cholesky(np.array(
             [[1.0, 0.950, -0.447], [0.950, 1.0, -0.400], [-0.447, -0.400, 1.0]])))
         chol = jnp.where((regime_path == 0)[:, None, None], corr_low, corr_high)
-        cz = jnp.einsum("tij,tj->ti", chol, z)
+        cz = jnp.einsum("tij,tj->ti", chol, z,
+                        precision=lax.Precision.HIGHEST)
         spy_n = cz[:, 0] * scale_spy
         qqq_n = cz[:, 1] * scale_spy * 1.35
         tlt_n = cz[:, 2] * scale_spy * 0.5

@@ -1,2 +1,2 @@
-"""Device compute ops: the fused path engine, rolling-window signals,
-summary reductions, and Pallas kernels for the hot paths."""
+"""Device compute ops: the fused path engine, the buy-and-hold
+compounding scan, rolling-window signals, and summary reductions."""

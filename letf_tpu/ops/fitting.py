@@ -213,8 +213,9 @@ from contextlib import contextmanager  # noqa: E402
 def fit_context():
     """Execution context for calibration fits: f64 (fitted parameters are
     part of the model SPEC and must not depend on the ambient production
-    precision) on the XLA:CPU backend (TPUs have no native f64; calibration
-    is a one-time cost, so exactness wins over placement)."""
+    precision) on the XLA:CPU backend (f64 is slow or missing on
+    accelerators; calibration is a one-time cost, so exactness wins over
+    placement)."""
     cpu = jax.devices("cpu")[0]
     with jax.default_device(cpu), jax.enable_x64(True):
         yield

@@ -1,17 +1,15 @@
-"""Lane-packed batched path engine (the fast production formulation).
+"""Batched path engine (the production formulation).
 
 The per-trial engine (path_engine.py) vmaps functions whose state has
-trailing dims of 3 (mu, h, 3x3 Q). On TPU every op's LAST axis maps to the
-128-wide lane dimension, so [B, 3] / [B, 3, 3] intermediates waste ~42x of
-the vector unit. This module reformulates the same math component-wise:
-every state element (h0..h2, the six unique entries of the symmetric Q,
-VIX, stress channels, per-asset TE) is a flat [B] array, so all ops run
-fully lane-packed over trials.
+trailing dims of 3 (mu, h, 3x3 Q), so every op works on [B, 3] /
+[B, 3, 3] intermediates with a tiny minor axis. This module reformulates
+the same math component-wise: every state element (h0..h2, the six unique
+entries of the symmetric Q, VIX, stress channels, per-asset TE) is a flat
+[B] array, so all ops run as dense vector ops over trials.
 
 Numerics are IDENTICAL to the per-trial engine given the same innovations
 (pure algebraic restatement; verified by the batched-vs-vmapped equality
-test). Throughput on the full institutional engine improves by the padding
-factor.
+test).
 """
 
 from __future__ import annotations
@@ -66,13 +64,6 @@ def draw_innovations_batched(model: SimModel, run_key, trial_ids, antithetic,
 # ---------------------------------------------------------------------------
 
 
-def _scan_unroll() -> int:
-    """Scan unroll factor: 8 on TPU (amortizes per-step while-loop overhead,
-    ~1.4x on the hot scans), 1 elsewhere (unrolling octuples XLA:CPU compile
-    time for no measurable gain — the test suite runs on a 1-core host)."""
-    return 8 if jax.default_backend() == "tpu" else 1
-
-
 def _clenshaw(t, c):
     """Chebyshev series sum c[k] T_k(t) via Clenshaw; c is a [K] array whose
     entries are consumed as scalars (K static)."""
@@ -87,7 +78,7 @@ def chi2_from_normal(z, cheb_coeffs):
     """Chi-square(nu) draw from one standard normal: exp(cheb(z/zmax)) where
     cheb fits log chi2_ppf(Phi(z), nu) (params.chi2_log_quantile_cheb).
     Quantile-exact to <5e-5 relative over +-6.3 sigma; pure FMAs + one exp,
-    so it runs identically in XLA and Pallas (no gamma rejection loop)."""
+    no gamma rejection loop."""
     from letf_tpu.models.params import CHI_CHEB_ZMAX
 
     t = jnp.clip(z / CHI_CHEB_ZMAX, -1.0, 1.0)
@@ -200,9 +191,7 @@ _MIX_CTR = np.uint32(0x7FEB352D)
 
 
 def _mix_u32(x):
-    """murmur3 finalizer on uint32 — full avalanche bijection (the same
-    mixer the Pallas kernels use for their in-kernel counter RNG,
-    ops/pallas_joint.py:_mix)."""
+    """murmur3 finalizer on uint32 — full avalanche bijection."""
     x = x ^ (x >> np.uint32(16))
     x = x * _MIX_M1
     x = x ^ (x >> np.uint32(13))
@@ -219,11 +208,8 @@ def counter_uniforms(keys, n: int):
     Key derivation stays on the threefry fold_in chain (ops/rng.py), so
     the stream discipline — per-(trial, purpose) keys, replay from
     (seed, trial_id), antithetic pairs sharing draws — is unchanged; only
-    the per-counter EXPANSION is the cheap mixer. Motivation: a vmapped
-    jax.random.uniform over [B] keys measured ~38 ms for [16384, 315]
-    draws on v5e (dominating the whole regime stage); this expansion is
-    ~1000x cheaper and is the construction the production Pallas kernels
-    already rely on for every joint/stress/TE draw."""
+    the per-counter EXPANSION is the cheap mixer: a few integer ops per
+    draw instead of a vmapped threefry jax.random.uniform over [B] keys."""
     w = jax.random.key_data(keys).astype(jnp.uint32)          # [B, 2]
     lane = _mix_u32(w[..., 0] * _MIX_GOLD ^ w[..., 1])        # [B]
     ctr = jnp.arange(n, dtype=jnp.uint32) * _MIX_CTR          # [n]
@@ -308,8 +294,7 @@ def simulate_regime_paths_spell(model: SimModel, keys, start_regime,
         max_spells = max(64, total_days // 12)
     K = max_spells
 
-    # Counter-expanded uniforms: the vmapped threefry draw here measured
-    # ~38 ms for [16384, 315] on v5e — it WAS the regime stage's cost.
+    # Counter-expanded uniforms (see counter_uniforms).
     u = counter_uniforms(keys, K)                               # [B, K]
 
     dwell_cdf = jnp.asarray(reg.dwell_cdf)
@@ -367,13 +352,13 @@ def simulate_regime_paths_spell(model: SimModel, keys, start_regime,
     # ceil(d) days — match that exactly.
     # completed[t] = #{spells with end <= t} (day t of a boundary belongs to
     # the NEXT spell). Decomposed over W-day buckets so the O(K*T) count
-    # runs on the MXU instead of as a VPU compare-reduction (~20x):
+    # runs as a batched matrix product instead of a compare-reduction:
     #   ends <= t  <=>  eb < tb  OR  (eb == tb AND ep <= tp)
     #   with eb = ends // W, ep = ends % W, tb = t // W, tp = t % W.
     #   within[b, tb, tp] = sum_k H[b,k,tb] * C[b,k,tp]   (batched matmul)
     #   coarse[b, tb]     = exclusive-cumsum of within[b, :, W-1]
-    # One-hot operands are exact in bf16 and the MXU accumulates in f32,
-    # so counts (<= W per bucket) are exact integers; parity is exact.
+    # One-hot operands are exact in bf16 and accumulate in f32, so counts
+    # (<= W per bucket) are exact integers; parity is exact.
     ends = jnp.cumsum(jnp.ceil(dwell).astype(jnp.int32), axis=1)  # [B, K]
     W = 64
     nb = (total_days + W - 1) // W
@@ -390,21 +375,6 @@ def simulate_regime_paths_spell(model: SimModel, keys, start_regime,
     completed = (coarse[:, :, None] + within).reshape(B, nb * W)
     completed = completed[:, :total_days]                          # [B, T]
     return (start_regime[:, None] ^ (completed % 2)).astype(jnp.int32)
-
-
-def start_offsets_only(run_key, trial_ids, buffer_days: int):
-    """The 'offset' random-start draw alone: bitwise the start_offset that
-    draw_innovations_fast produces for the same (run_key, trial_ids,
-    buffer_days). Lets the slab pipeline pre-sort trial lanes by offset
-    (ops/slab_chunk.py) before paying for the full innovation pass."""
-    from letf_tpu.ops import rng as rngs
-
-    tks = jax.vmap(lambda t: rngs.trial_key(run_key, t))(trial_ids)
-    kstart = jax.vmap(lambda k: rngs.stream(k, rngs.START))(tks)
-    k_off = jax.vmap(lambda k: jax.random.split(k, 3))(kstart)[:, 0]
-    min_offset = min(50, buffer_days // 4)
-    return jax.vmap(
-        lambda k: jax.random.randint(k, (), min_offset, buffer_days))(k_off)
 
 
 def draw_innovations_fast(model: SimModel, run_key, trial_ids, antithetic,
@@ -467,8 +437,8 @@ def draw_innovations_fast(model: SimModel, run_key, trial_ids, antithetic,
         max_spells=max_spells)
 
     if not joint_draws:
-        # Joint/VIX/IRX innovations are produced INSIDE the Pallas joint
-        # kernel (ops/pallas_joint.py); skip generating them here.
+        # Callers that need only the regime/start draws (emit_regime_paths)
+        # skip the joint/VIX/IRX innovations.
         eps = u_chi = vix_noise = irx_noise = None
     else:
         sign = jnp.where(antithetic, -1.0, 1.0)[:, None, None]
@@ -496,9 +466,7 @@ def draw_innovations_fast(model: SimModel, run_key, trial_ids, antithetic,
             streams(rngs.IRX_NOISE))
 
     if not aux_draws:
-        # Stress/jump/TE innovations are produced INSIDE the Pallas compose
-        # kernel (ops/pallas_compose.py) with counter-based draws; skip
-        # generating ~11 [B, S] tensors (RNG + HBM writes) nothing reads.
+        # Same for the stress/jump/TE innovations (~11 [B, S] tensors).
         stress_norms = u_jump = t_abs = jump_sign = te_draws = None
     else:
         stress_norms = jax.vmap(lambda k: jax.random.normal(k, (sim_days, 2)))(
@@ -543,12 +511,8 @@ def window_series(x_full, vix_full, irx_full, regime_full, start_offset,
     out[b, s] = in[b, s + start_offset[b]].
 
     Returns (spy, qqq, tlt, vix, irx [B, S] float, regime [B, S] int32).
-    Never a gather — a take_along_axis here costs ~20x the surrounding
-    math on TPU:
-    - TPU/f32 production: one-pass Pallas kernel (VMEM shift-select).
-    - elsewhere (CPU tests, f64 parity): XLA binary shift-select tree —
-      ~11 dense conditional rolls; both are bit-identical to the gather
-      (pure data movement)."""
+    A binary shift-select tree (~11 dense conditional rolls) instead of a
+    gather; bit-identical to take_along_axis (pure data movement)."""
     B, T = regime_full.shape
     if T == sim_days:
         # No buffer => every start_offset is 0 (only the 'offset' method
@@ -559,43 +523,25 @@ def window_series(x_full, vix_full, irx_full, regime_full, start_offset,
 
     dt = x_full.dtype
     offs = start_offset                                 # [B]
-    from letf_tpu.ops.pallas_window import (
-        fits_vmem,
-        window_offsets_pallas,
-    )
-
-    use_kernel = (jax.default_backend() == "tpu" and dt == jnp.float32
-                  and B % 128 == 0 and fits_vmem(T, sim_days))
-    if use_kernel:
-        packed = jnp.stack([
-            x_full[..., 0], x_full[..., 1], x_full[..., 2],
-            vix_full, irx_full, regime_full.astype(dt)],
-            axis=0).transpose(0, 2, 1)                      # [6, T, B]
-        w = window_offsets_pallas(packed, offs, sim_days)   # [6, S, B]
-        spy, qqq, tlt = (jnp.moveaxis(w[c], 0, 1) for c in range(3))
-        vix = jnp.moveaxis(w[3], 0, 1)
-        irx = jnp.moveaxis(w[4], 0, 1)
-        regime = jnp.moveaxis(w[5], 0, 1).astype(jnp.int32)
-    else:
-        packed = jnp.concatenate([
-            x_full, vix_full[..., None], irx_full[..., None],
-            regime_full.astype(dt)[..., None]], axis=-1)    # [B, T, 6]
-        max_off = T - sim_days
-        for k in reversed(range(max(1, int(max_off).bit_length()))):
-            # MSB-first: once bit k is applied the remaining shift is
-            # at most 2^k - 1, so the working tensor truncates to
-            # sim_days + 2^k - 1 — the early (largest) levels shrink
-            # the copies the later levels pay for.
-            shift = 1 << k
-            bit = ((offs >> k) & 1) > 0
-            rolled = jnp.concatenate(
-                [packed[:, shift:], packed[:, :shift]], axis=1)
-            packed = jnp.where(bit[:, None, None], rolled,
-                               packed)[:, :sim_days + shift - 1]
-        w = packed[:, :sim_days]
-        spy, qqq, tlt = w[..., 0], w[..., 1], w[..., 2]
-        vix, irx = w[..., 3], w[..., 4]
-        regime = w[..., 5].astype(jnp.int32)
+    packed = jnp.concatenate([
+        x_full, vix_full[..., None], irx_full[..., None],
+        regime_full.astype(dt)[..., None]], axis=-1)    # [B, T, 6]
+    max_off = T - sim_days
+    for k in reversed(range(max(1, int(max_off).bit_length()))):
+        # MSB-first: once bit k is applied the remaining shift is at most
+        # 2^k - 1, so the working tensor truncates to sim_days + 2^k - 1 —
+        # the early (largest) levels shrink the copies the later levels
+        # pay for.
+        shift = 1 << k
+        bit = ((offs >> k) & 1) > 0
+        rolled = jnp.concatenate(
+            [packed[:, shift:], packed[:, :shift]], axis=1)
+        packed = jnp.where(bit[:, None, None], rolled,
+                           packed)[:, :sim_days + shift - 1]
+    w = packed[:, :sim_days]
+    spy, qqq, tlt = w[..., 0], w[..., 1], w[..., 2]
+    vix, irx = w[..., 3], w[..., 4]
+    regime = w[..., 5].astype(jnp.int32)
     return spy, qqq, tlt, vix, irx, regime
 
 
@@ -757,7 +703,7 @@ def simulate_joint_and_vix_batched(model: SimModel, regime, eps, u_chi,
     init = (zB, zB, zB, zB, zB, zB, zB, zB, zB, zB, zB, zB,
             regime_t[0], zB, jnp.int32(0))
     _, (x0, x1, x2, vix) = lax.scan(
-        step, init, (regime_t, eps0, eps1, eps2, u_t, vn_t), unroll=_scan_unroll())
+        step, init, (regime_t, eps0, eps1, eps2, u_t, vn_t))
 
     x = jnp.stack([jnp.moveaxis(x0, 0, 1), jnp.moveaxis(x1, 0, 1),
                    jnp.moveaxis(x2, 0, 1)], axis=-1)          # [B, T, 3]
@@ -805,15 +751,14 @@ def simulate_stress_batched(model: SimModel, regime, vix, norms, u_jump, t_abs):
 
     zB = jnp.zeros((B,), dt)
     _, (liq, cred, jump) = lax.scan(step, (zB, zB, jnp.int32(0)),
-                                    (regime_t, vix_t, n0, n1, uj, ta),
-                                    unroll=_scan_unroll())
+                                    (regime_t, vix_t, n0, n1, uj, ta))
     return (jnp.moveaxis(liq, 0, 1), jnp.moveaxis(cred, 0, 1),
             jnp.moveaxis(jump, 0, 1))
 
 
 def simulate_tracking_error_batched(model: SimModel, regime, vix, underlying,
                                     t_draws):
-    """Batched TE: one scan whose state is [B, A] (A=6 on sublanes)."""
+    """Batched TE: one scan whose state is [B, A]."""
     Tk = model.tracking
     dt = vix.dtype
     B = regime.shape[0]
@@ -841,8 +786,7 @@ def simulate_tracking_error_batched(model: SimModel, regime, vix, underlying,
         return (te_new, bias_new, t + 1), te_new - bias_new
 
     zBA = jnp.zeros((B, _A), dt)
-    _, te = lax.scan(step, (zBA, zBA, jnp.int32(0)), (innov_t, move_t),
-                     unroll=_scan_unroll())
+    _, te = lax.scan(step, (zBA, zBA, jnp.int32(0)), (innov_t, move_t))
     te = jnp.moveaxis(te, 0, 1)                 # [B, S, A]
 
     cap = jnp.asarray(Tk.clip_limit, dt)
@@ -854,65 +798,24 @@ def path_from_innovations_batched(model: SimModel, innov: Innovations,
                                   sim_days: int,
                                   moment_matching: bool = True,
                                   use_funding_model: bool = True,
-                                  use_stress: bool = True,
-                                  joint=None,
-                                  counter_ctx=None) -> PathOutputs:
+                                  use_stress: bool = True) -> PathOutputs:
     """Batched twin of path_from_innovations: [B, ...] innovations in,
-    [B, ...] PathOutputs out, numerics identical.
-
-    ``joint``: optional precomputed (x_full [B, T, 3], vix_full, irx_full)
-    from the Pallas joint kernel (innov's joint fields are None then);
-    moment matching is applied here in that case.
-
-    ``counter_ctx``: optional (base_ids [B], seed_words [2]) enabling the
-    phase-2 Pallas kernel (stress + TE + composition with counter-based
-    in-kernel draws) on TPU."""
+    [B, ...] PathOutputs out, numerics identical."""
     model = _to_device(model)
     regime_full = innov.regime_full                     # [B, T]
     B, T = regime_full.shape
 
-    if joint is not None:
-        x_full, vix_full, irx_full = joint
-        if moment_matching:
-            theo = jnp.asarray(model.joint.theo_mean, x_full.dtype)
-            x_full = x_full + (theo[None, None, :]
-                               - x_full.mean(axis=1, keepdims=True)) * 0.1
-    else:
-        x_full, vix_full = simulate_joint_and_vix_batched(
-            model, regime_full, innov.eps, innov.u_chi, innov.vix_noise,
-            moment_matching=moment_matching)
+    x_full, vix_full = simulate_joint_and_vix_batched(
+        model, regime_full, innov.eps, innov.u_chi, innov.vix_noise,
+        moment_matching=moment_matching)
 
-        irx_full = jnp.clip(
-            _gather_r(jnp.asarray(model.irx_base, x_full.dtype), regime_full)
-            + 0.5 * innov.irx_noise, 0.0, 15.0)
+    irx_full = jnp.clip(
+        _gather_r(jnp.asarray(model.irx_base, x_full.dtype), regime_full)
+        + 0.5 * innov.irx_noise, 0.0, 15.0)
 
     spy, qqq, tlt, vix, irx, regime = window_series(
         x_full, vix_full, irx_full, regime_full, innov.start_offset,
         sim_days)
-
-    use_compose_kernel = (
-        counter_ctx is not None and jax.default_backend() == "tpu"
-        and vix.dtype == jnp.float32 and B % 1024 == 0
-        and use_stress and use_funding_model)
-    if use_compose_kernel:
-        from letf_tpu.ops.pallas_compose import (
-            _pack_asset_params,
-            _pack_stress_params,
-            pallas_compose_generate,
-        )
-
-        base_ids, seed_words = counter_ctx
-        etf_ret, spy, qqq, cash_ret, jc, ls, cs = pallas_compose_generate(
-            _pack_stress_params(model), _pack_asset_params(model),
-            base_ids, seed_words, spy, qqq, tlt, vix, irx,
-            regime, sim_days=sim_days)
-        jump_days = jc.astype(jnp.int32)
-        liq_mean = ls / sim_days
-        cred_mean = cs / sim_days
-        risk_free = jnp.clip(irx, 0.0, 20.0) / 100.0
-        return _finish_path(model, innov, etf_ret, tlt, spy, qqq, vix,
-                            regime, cash_ret, risk_free, jump_days,
-                            liq_mean, cred_mean)
 
     if use_stress:
         liq, cred, jump = simulate_stress_batched(
@@ -931,11 +834,14 @@ def path_from_innovations_batched(model: SimModel, innov: Innovations,
 
     streams = jnp.stack([spy, qqq, tlt], axis=-1)
     # underlying[..., a] = streams[..., und_idx[a]] * beta[a] as a one-hot
-    # contraction (tiny matmul) instead of a [B, S, A] gather.
+    # contraction (tiny matmul) instead of a [B, S, A] gather. HIGHEST
+    # precision: a default-precision f32 contraction may run in TF32 on
+    # the GPU, rounding every trial-day's return to ~3 decimal digits.
     und_oh = (jnp.asarray(model.assets.underlying)[None, :]
               == jnp.arange(3)[:, None]).astype(streams.dtype)     # [3, A]
     beta = jnp.asarray(model.assets.beta, streams.dtype)
-    underlying = jnp.einsum("bsk,ka->bsa", streams, und_oh * beta[None, :])
+    underlying = jnp.einsum("bsk,ka->bsa", streams, und_oh * beta[None, :],
+                            precision=lax.Precision.HIGHEST)
 
     spread = borrow_spread_series(model, vix, risk_free, liq, cred,
                                   use_funding_model=use_funding_model)
@@ -962,8 +868,7 @@ def path_from_innovations_batched(model: SimModel, innov: Innovations,
 def _finish_path(model, innov, etf_ret, tlt, spy, qqq, vix, regime,
                  cash_ret, risk_free, jump_days, liq_mean,
                  cred_mean) -> PathOutputs:
-    """Validity checks + repair pass + PathOutputs assembly (shared by the
-    XLA and Pallas composition paths)."""
+    """Validity checks + repair pass + PathOutputs assembly."""
     finite_pre = (jnp.all(jnp.isfinite(etf_ret), axis=(1, 2))
                   & jnp.all(jnp.isfinite(tlt), axis=1)
                   & jnp.all(jnp.isfinite(vix), axis=1))
@@ -997,23 +902,11 @@ def generate_paths_batched(model: SimModel, run_key, trial_ids, antithetic,
                            use_stress: bool = True,
                            fast_draws: bool = True,
                            anchors=None,
-                           joint_kernel: str = "auto",
                            max_spells: int | None = None) -> PathOutputs:
-    """Lane-packed batch path generation (institutional_v1 mode).
+    """Batched path generation (institutional_v1 mode).
 
     fast_draws=True uses the cheap exact samplers (distribution-equivalent
-    streams); False reproduces the per-trial engine's draws bit-for-bit.
-
-    joint_kernel: 'auto' uses the Pallas in-kernel-RNG joint generator
-    (ops/pallas_joint.py) on TPU/f32 when B % 1024 == 0; 'off' forces the
-    XLA joint scan. The kernel's draws are counter-based — keyed by
-    (run seed, base trial id, day, draw index) — so antithetic pairing
-    (pairs share a base id, odd member's joint normals negated) and
-    replay-from-(seed, trial_id) both hold regardless of chunk layout."""
-    B = trial_ids.shape[0]
-    want_kernel = (fast_draws and joint_kernel != "off"
-                   and jax.default_backend() == "tpu"
-                   and jnp.zeros(0).dtype == jnp.float32)
+    streams); False reproduces the per-trial engine's draws bit-for-bit."""
     if not fast_draws:
         innov = draw_innovations_batched(model, run_key, trial_ids,
                                          antithetic, sim_days, buffer_days,
@@ -1021,55 +914,6 @@ def generate_paths_batched(model: SimModel, run_key, trial_ids, antithetic,
         return path_from_innovations_batched(
             model, innov, sim_days, moment_matching=moment_matching,
             use_funding_model=use_funding_model, use_stress=use_stress)
-
-    if want_kernel:
-        from letf_tpu.ops.pallas_joint import (
-            TILE,
-            _pack_params,
-            pallas_joint_generate,
-        )
-
-        # Counter-based draws make results batch-layout-independent, so a
-        # non-multiple-of-1024 batch (e.g. trade-emission replay of a trial
-        # subset) can simply be PADDED — padded lanes compute throwaway
-        # trials and are sliced off, keeping wealth runs and replays on the
-        # exact same per-trial paths.
-        pad = (-B) % TILE
-        ids_p = jnp.concatenate(
-            [trial_ids, jnp.broadcast_to(trial_ids[-1:], (pad,))]) \
-            if pad else trial_ids
-        anti_p = jnp.concatenate(
-            [antithetic, jnp.zeros((pad,), antithetic.dtype)]) \
-            if pad else antithetic
-
-        # The compose kernel (stress + TE in-kernel) engages under exactly
-        # this condition below; skip the host-side aux draws then.
-        compose_will_run = use_stress and use_funding_model
-        innov = draw_innovations_fast(model, run_key, ids_p, anti_p,
-                                      sim_days, buffer_days,
-                                      random_start_method, anchors=anchors,
-                                      joint_draws=False,
-                                      aux_draws=not compose_will_run,
-                                      max_spells=max_spells)
-        total_days = sim_days + buffer_days
-        seed_words = jax.lax.bitcast_convert_type(
-            jax.random.key_data(run_key).reshape(-1)[:2], jnp.int32)
-        signs = jnp.where(anti_p, -1.0, 1.0).astype(jnp.float32)
-        params = _pack_params(model)
-        cheb = jnp.asarray(model.joint.chi_cheb, jnp.float32)
-        x, vix, irx = pallas_joint_generate(
-            params, cheb, innov.regime_full, ids_p, signs, seed_words,
-            total_days)
-        path = path_from_innovations_batched(
-            model, innov, sim_days, moment_matching=moment_matching,
-            use_funding_model=use_funding_model, use_stress=use_stress,
-            joint=(x, vix, irx),
-            counter_ctx=(ids_p.astype(jnp.int32), seed_words))
-        if pad:
-            path = jax.tree.map(
-                lambda a: a[:B] if a.ndim >= 1 and a.shape[0] == B + pad
-                else a, path)
-        return path
 
     innov = draw_innovations_fast(model, run_key, trial_ids, antithetic,
                                   sim_days, buffer_days,

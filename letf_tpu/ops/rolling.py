@@ -4,12 +4,9 @@ The reference strategies consume pandas ``rolling`` aggregates
 (letf/strategy.py throughout): mean/std(ddof=1)/skew/sum over 5-200 day
 windows, with ``min_periods`` warmup NaNs and ``.shift(1)`` lags. Here each
 window aggregate is computed from causal windowed raw-moment sums via
-cumsum differences — O(T) on the VPU, batched over the trial axis.
+cumsum differences — O(T), batched over the trial axis.
 
-All functions take the time axis as a parameter (default -1). The slab
-pipeline (ops/slab_chunk.py) computes signals on [G, S, 8, 128] tiles with
-time on axis 1 — prefix sums along a non-minor axis avoid the cross-lane
-shifts the [B, S] layout pays.
+All functions take the time axis as a parameter (default -1).
 
 NaN is used for warmup exactly like pandas; strategy code masks with
 ``jnp.isnan`` where the reference uses ``pd.isna``.

@@ -1,9 +1,9 @@
 """Parallel execution: device mesh management and the sharded MC driver.
 
 The reference's process-pool data parallelism (mc_runner.py:141-208, pickled
-args per trial) maps to: vmap over an on-chip trial batch + pjit sharding of
-the trial axis across the ICI mesh. Cross-device communication is only the
-implicit final gather of KB-scale summary tensors.
+args per trial) maps to: a batched trial axis on each device + sharding of
+that axis across the local devices. Cross-device communication is only the
+final gather of KB-scale summary tensors.
 """
 
 from letf_tpu.parallel.mesh import trial_mesh, trial_sharding

@@ -2,7 +2,7 @@
 
 Monte Carlo over independent trials is pure data parallelism, so the mesh
 is one axis; paths, signals, and strategy state all carry the trial axis
-and shard over ICI with zero resharding. Summary tensors (final wealth per
+and shard over the devices with zero resharding. Summary tensors (final wealth per
 strategy, trade counts, max drawdown) are the only cross-device traffic.
 """
 

@@ -104,13 +104,11 @@ def withdrawal_schedule(sim_days: int, annual_amount: float,
     return cf
 
 
-@functools.partial(jax.jit, static_argnames=("apply_costs", "emit_trades",
-                                             "strategy_kernel"))
+@functools.partial(jax.jit, static_argnames=("apply_costs", "emit_trades"))
 def run_strategies_batch(path: PathOutputs, sig: SignalSet,
                          apply_costs: bool = True,
                          emit_trades: bool = False,
-                         cashflows=None,
-                         strategy_kernel: str = "auto") -> StrategyResults:
+                         cashflows=None) -> StrategyResults:
     """Run S1-S19 over a path batch. path/sig arrays are [B, S, ...].
 
     ``cashflows``: optional [S] per-day dollar flows (positive =
@@ -121,26 +119,6 @@ def run_strategies_batch(path: PathOutputs, sig: SignalSet,
     """
     B, S, A = path.etf_ret.shape
     dt = path.etf_ret.dtype
-
-    # Production path: the phase-3 Pallas kernel (ops/pallas_strategies.py)
-    # runs the whole day loop in VMEM — no per-step dispatch, no HBM carry
-    # round-trips, no shifted signal copies. The XLA scan below remains the
-    # general path (trade emission, CPU/f64 parity tests, odd batch sizes).
-    if strategy_kernel != "off" and not emit_trades:
-        from letf_tpu.ops.pallas_strategies import (
-            TILE as _K_TILE,
-            channels_from,
-            pallas_strategies_run,
-        )
-
-        if (jax.default_backend() == "tpu" and dt == jnp.float32
-                and B % _K_TILE == 0):
-            fw, nt, mdd = pallas_strategies_run(
-                channels_from(path, sig), cashflows=cashflows,
-                apply_costs=apply_costs)
-            return StrategyResults(
-                final_wealth=fw, num_trades=nt, max_dd=mdd,
-                tj_alloc=None, tj_value=None, tj_price=None, tj_asset=None)
 
     # Time-major xs for the scan: [S, B, ...]
     def tm(x):
@@ -154,10 +132,9 @@ def run_strategies_batch(path: PathOutputs, sig: SignalSet,
         first = jnp.full_like(x[:1], jnp.nan)
         return jnp.concatenate([first, x[:-1]], axis=0)
 
-    # Every per-day input is a flat [S, B] channel (trials on the lane
-    # axis); the [S, B, A] forms would put A=6 on lanes at 5% utilization.
-    # (Stacking all channels into one [S, C, B] tensor was measured SLOWER
-    # — the stack copy costs more than per-channel xs slicing saves.)
+    # Every per-day input is a flat [S, B] channel (trials on the minor,
+    # contiguous axis); the [S, B, A] forms would stride each per-day read
+    # by A=6.
     CH: dict = {}
 
     def ch(name, arr):
@@ -206,10 +183,10 @@ def run_strategies_batch(path: PathOutputs, sig: SignalSet,
     tqqq_lev = cfg.ASSETS["TQQQ"].leverage
 
     # Layout note: all per-strategy carries are [NS, B] — the TRIAL axis is
-    # last so it maps onto the 128-wide lane dimension (a [B, NS] layout
-    # would put NS=19 on lanes at 15% utilization; see CLAUDE.md "no
-    # trailing small dims on hot tensors"). S6's two-asset position/leverage
-    # state is kept as four flat [B] components for the same reason.
+    # last (contiguous), so every per-strategy row is one dense [B] vector
+    # (no trailing small dims on hot tensors). S6's two-asset
+    # position/leverage state is kept as four flat [B] components for the
+    # same reason.
     def step(carry, x):
         (equity, prev_alloc, pos4, pos5, pos8,
          s6_pos0, s6_pos1, s6_emb0, s6_emb1,
@@ -536,7 +513,7 @@ def run_strategies_batch(path: PathOutputs, sig: SignalSet,
         emit(12, rebal19, cand19, equity[18], tqqq_price)
         rets.append(ret19); traded.append(rebal19); allocs_new.append(alloc19)
 
-        # ---- combine ([NS, B]: strategies on sublanes, trials on lanes) ----
+        # ---- combine ([NS, B]: strategies major, trials minor) ----
         ret_all = jnp.stack(rets, axis=0)              # [NS, B]
         # Reference quirk: benchmark cumprods include day 0 (strategy.py:93),
         # while every loop strategy starts compounding at day 1.
@@ -598,8 +575,7 @@ def run_strategies_batch(path: PathOutputs, sig: SignalSet,
         jnp.zeros((NS, B), dt),                       # max drawdown
     )
 
-    from letf_tpu.ops.path_batched import _scan_unroll
-    carry, outs = lax.scan(step, init, xs, unroll=_scan_unroll())
+    carry, outs = lax.scan(step, init, xs)
     equity = carry[0].T
     trades = carry[9].T
     mdd = carry[11].T

@@ -1,4 +1,4 @@
-"""US tax engine for the TPU-native LETF framework.
+"""US tax engine for the JAX LETF framework.
 
 Subsystem map (reference parity):
 - engine.py        : IRC §1222/§1211(b)/§1212(b) capital-gains netting + golden tests

@@ -3,7 +3,7 @@
 The reference pickles every expensive artifact (letf/utils.py:8-23,
 config.py:179-293). Pickle caching is kept (utils/cache.py) for dict-level
 parity; this module adds orbax array checkpoints for the densified SimModel
-pytree — the format production TPU jobs restore from without re-running
+pytree — the format production jobs restore from without re-running
 calibration, and the basis for MC-resume (chunked runs record the last
 completed chunk, so a killed 1M-trial run restarts mid-stream: trials are
 replayable from (seed, trial_id) alone).

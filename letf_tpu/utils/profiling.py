@@ -39,9 +39,10 @@ class StepTimer:
 
 
 @contextlib.contextmanager
-def device_trace(log_dir: str = "/tmp/letf_tpu_trace"):
-    """Capture a jax.profiler trace (XLA ops, fusion, HBM traffic) around a
-    block; view with TensorBoard or xprof."""
+def device_trace(log_dir: str = "out/trace"):
+    """Capture a jax.profiler trace (XLA ops, fusion, device-memory
+    traffic) around a block into ``log_dir`` (relative paths resolve
+    against the working directory); view with TensorBoard or xprof."""
     import jax
 
     jax.profiler.start_trace(log_dir)

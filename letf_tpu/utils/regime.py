@@ -1,6 +1,6 @@
 """Probabilistic stress-regime inference.
 
-TPU-native rewrite of the reference logic (letf/utils.py:55-127): the
+JAX rewrite of the reference logic (letf/utils.py:55-127): the
 logistic stress score is fully vectorized; the EWMA smoothing and the
 hysteresis state machine are ``lax.scan`` recurrences. NumPy variants are
 provided for host-side calibration (identical math, f64).

@@ -10,7 +10,7 @@ Parity surface (letf/validation.py:18-392):
 - run_validation_tests: orchestrates + writes JSON
 
 The Monte Carlo invariants run fully vectorized on device (one jit, no
-Python loops) — the TPU-native restatement of the reference's NumPy loops.
+Python loops) — the device restatement of the reference's NumPy loops.
 """
 
 from __future__ import annotations
@@ -24,11 +24,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from letf_tpu import config as cfg
-
-
-def _use_pallas_kernels() -> bool:
-    return (jax.default_backend() == "tpu"
-            and jnp.zeros(0).dtype == jnp.float32)
 
 
 def _neutral_model(leverage: float):
@@ -52,58 +47,13 @@ def _neutral_model(leverage: float):
         cash_rate=np.zeros_like(np.asarray(model.cash_rate, np.float64)))
 
 
-def _zero_drift_median_pallas(key, leverage: float, daily_std: float,
-                              n_sims: int, n_days: int) -> float:
-    """The invariant driven through the PRODUCTION slab kernel
-    (pallas_compose_strategies_run): zero-drift normal underlying slabs,
-    all cost/stress/TE channels zeroed, leverage L on every asset; the S1
-    column's final wealth is exactly prod(1 + L z_t) through the shipped
-    composition + repair + strategy machinery (VERDICT r2 weak #7)."""
-    from letf_tpu.ops.pallas_compose import (
-        _pack_asset_params,
-        _pack_stress_params,
-    )
-    from letf_tpu.ops.pallas_strategies import pallas_compose_strategies_run
-    from letf_tpu.ops.path_engine import _to_device
-
-    B = -(-n_sims // 1024) * 1024          # pad to the slab tile multiple
-    sub = next(h for h in (32, 16, 8) if B % (h * 128) == 0)
-    G = B // (sub * 128)
-    model = _to_device(_neutral_model(leverage))
-
-    @functools.partial(jax.jit, static_argnames=("n_days",))
-    def run(key, n_days: int):
-        z = (jax.random.normal(key, (B, n_days), jnp.float32) * daily_std)
-
-        def slab(a):
-            return a.reshape(G, sub, 128, n_days).transpose(0, 3, 1, 2)
-
-        zs = slab(z)
-        const = lambda v: jnp.full((G, n_days, sub, 128), v, jnp.float32)  # noqa: E731
-        fw = pallas_compose_strategies_run(
-            _pack_stress_params(model), _pack_asset_params(model),
-            jnp.arange(B, dtype=jnp.int32), jnp.zeros(2, jnp.int32),
-            zs, zs, zs, const(20.0), const(0.0), const(0.0),
-            sim_days=n_days, apply_costs=False)[0]
-        return jnp.median(fw[:, 0] / cfg.INITIAL_CAPITAL - 1.0)
-
-    return float(run(key, n_days))
-
-
 def _engine_zero_drift_median(key, leverage: float, daily_std: float,
                               n_sims: int, n_days: int):
     """Median annual compound return of Lx zero-drift paths, driven through
-    the SHIPPED cost/compounding path — on TPU the production slab kernel
-    (pallas_compose_strategies_run), elsewhere compose_letf_returns
-    (ops/path_engine.py) — with zero expense/borrow, so the invariant fails
-    if anyone breaks the engine's leverage/financing math (SURVEY §4: 'same
-    tests re-expressed against TPU kernels', reference validation.py:18-87).
-    Returns (median, engine_name)."""
-    if _use_pallas_kernels():
-        return (_zero_drift_median_pallas(key, leverage, daily_std, n_sims,
-                                          n_days),
-                "pallas_compose_strategies")
-
+    the SHIPPED cost/compounding path (compose_letf_returns,
+    ops/path_engine.py) with zero expense/borrow, so the invariant fails
+    if anyone breaks the engine's leverage/financing math (reference
+    validation.py:18-87). Returns (median, engine_name)."""
     from letf_tpu.ops.path_engine import _to_device, compose_letf_returns
 
     model = _neutral_model(leverage)
@@ -120,30 +70,20 @@ def _engine_zero_drift_median(key, leverage: float, daily_std: float,
         logw = jnp.sum(jnp.log1p(etf[..., 0]), axis=1)
         return jnp.median(jnp.expm1(logw))
 
-    return float(run(key, n_sims, n_days)), "compose_letf_returns_xla"
+    return float(run(key, n_sims, n_days)), "compose_letf_returns"
 
 
 def _buyhold_engine_median(seed: int, leverage: float, daily_std: float,
                            n_sims: int, n_days: int):
     """Median compound return through the shipped buy-and-hold engine
-    (ops/pallas_path.py): the PRODUCTION Pallas kernel on TPU, its XLA
-    twin elsewhere (same compounding relation). Returns (median, engine)."""
-    from letf_tpu.ops.pallas_path import gbm_buyhold_pallas, gbm_buyhold_xla
+    (ops/buyhold.py). Returns (median, engine)."""
+    from letf_tpu.ops.buyhold import gbm_buyhold
 
-    if _use_pallas_kernels():
-        # The kernel costs nothing at this size — use >=64k paths so the
-        # median's sampling error (~1.25 sigma/sqrt(n) ~ 0.2%) sits well
-        # inside the 2% tolerance (5k paths put it at ~0.8%, a coin-flip
-        # against a 2.5-sigma draw).
-        n_pad = max(-(-n_sims // 1024) * 1024, 65536)
-        w, _ = gbm_buyhold_pallas(seed, n_pad, n_days, 0.0,
-                                  float(daily_std), float(leverage), 0.0)
-        return float(jnp.median(w) - 1.0), "gbm_buyhold_pallas"
-    w, _ = gbm_buyhold_xla(jax.random.key(seed), n_sims, n_days, mu=0.0,
-                           sigma=float(daily_std),   # np scalar would
-                           leverage=float(leverage),  # promote the f32 carry
-                           daily_cost=0.0)
-    return float(jnp.median(w) - 1.0), "gbm_buyhold_xla"
+    w, _ = gbm_buyhold(jax.random.key(seed), n_sims, n_days, mu=0.0,
+                       sigma=float(daily_std),   # np scalar would
+                       leverage=float(leverage),  # promote the f32 carry
+                       daily_cost=0.0)
+    return float(jnp.median(w) - 1.0), "gbm_buyhold"
 
 
 def validate_zero_drift_vol_drag(n_sims: int = 10_000, seed: int = 42) -> Dict:

@@ -1,20 +1,12 @@
 """Smoke test: the reference's primary validation tool (quick_test.py:31-108)
-re-expressed for the TPU build — golden tax tests, data, calibration, a
+re-expressed for the JAX build — golden tax tests, data, calibration, a
 10-sim x 10y Monte Carlo over S1-S3, and summary statistics.
 """
 
 import os
 import time
 
-os.environ.setdefault("LETF_NON_INTERACTIVE", "1")
-
-import jax  # noqa: E402
-
-from letf_tpu.utils.backend import ensure_backend  # noqa: E402
-
-ensure_backend()
-jax.config.update("jax_compilation_cache_dir", "/tmp/letf_tpu_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+from letf_tpu.utils.compile_cache import enable_compile_cache
 
 
 def main() -> None:
@@ -27,7 +19,7 @@ def main() -> None:
 
     t0 = time.time()
     print("=" * 80)
-    print("QUICK TEST - TPU-native LETF Monte Carlo")
+    print("QUICK TEST - LETF Monte Carlo")
     print("=" * 80)
 
     run_golden_tests()
@@ -47,4 +39,6 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    os.environ.setdefault("LETF_NON_INTERACTIVE", "1")
+    enable_compile_cache()
     main()

@@ -6,14 +6,7 @@ median ordering should reflect volatility drag vs drift.
 
 import os
 
-os.environ.setdefault("LETF_NON_INTERACTIVE", "1")
-
-import jax  # noqa: E402
-
-from letf_tpu.utils.backend import ensure_backend  # noqa: E402
-
-ensure_backend()
-jax.config.update("jax_compilation_cache_dir", "/tmp/letf_tpu_jax_cache")
+from letf_tpu.utils.compile_cache import enable_compile_cache
 
 
 def main() -> None:
@@ -52,4 +45,6 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    os.environ.setdefault("LETF_NON_INTERACTIVE", "1")
+    enable_compile_cache()
     main()

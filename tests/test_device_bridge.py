@@ -112,34 +112,6 @@ def test_device_elections_match_host_tracker(emission, method):
                                    err_msg=f"{method} trial {trial}")
 
 
-def test_pallas_wash_matches_scan_interpret():
-    """The Pallas wash-matching kernel (TPU production path for the
-    sequential one-use replacement matching) must reproduce the lax.scan
-    bitwise in interpret mode on f32 inputs — incl. losses with no
-    eligible replacement, used-buy exclusion, window-edge days, and
-    partial fractions (rep_q < sell quantity)."""
-    from letf_tpu.ops.pallas_wash import wash_matching_pallas
-    from letf_tpu.tax.device_bridge import _wash_matching_scan
-
-    rng = np.random.default_rng(11)
-    B, S = 1024, 300
-    buy = np.where(rng.random((B, S)) < 0.25,
-                   rng.gamma(2.0, 3.0, (B, S)), 0.0).astype(np.float32)
-    sell = np.where(rng.random((B, S)) < 0.15,
-                    rng.gamma(2.0, 4.0, (B, S)), 0.0).astype(np.float32)
-    loss = np.where(rng.random((B, S)) < 0.5,
-                    rng.gamma(2.0, 50.0, (B, S)), 0.0).astype(np.float32)
-    loss = np.where(sell > 0, loss, 0.0)
-
-    lj, sj, bj = (jnp.asarray(a, jnp.float32) for a in (loss, sell, buy))
-    dis_s, off_s, has_s = _wash_matching_scan(lj, sj, bj)
-    dis_p, off_p, has_p = wash_matching_pallas(lj, sj, bj, interpret=True)
-    np.testing.assert_array_equal(np.asarray(has_p), np.asarray(has_s))
-    np.testing.assert_array_equal(np.asarray(off_p), np.asarray(off_s))
-    np.testing.assert_allclose(np.asarray(dis_p), np.asarray(dis_s),
-                               rtol=1e-6, atol=1e-6)
-
-
 def test_banded_frontier_matches_dense_pairing():
     """The banded-frontier FIFO bucketing (O(S*L), the scaling fix for
     exact tax at 30y — VERDICT r2 weak #5) must equal the dense O(S^2)
@@ -217,7 +189,7 @@ def test_device_bridge_scales_and_feeds_tax(emission):
 
 def test_prefix_cost_merge_matches_searchsorted():
     """The merged-sort _prefix_cost (pass-1 scaling fix: the row-wise
-    method='sort' searchsorted was 84% of the bridge on TPU) must pick
+    method='sort' searchsorted pays an argsort plus gathers) must pick
     the SAME owning lot as the searchsorted oracle everywhere — wrong-lot
     errors are ~50% relative — including the clamp case (take beyond the
     last lot), zero-width-lot ulp dips in cb_prev + q at the query
@@ -274,66 +246,3 @@ def test_prefix_cost_merge_matches_searchsorted_f32():
                                    jnp.asarray(p)))
     assert a.dtype == np.float32
     np.testing.assert_allclose(a, b, rtol=3e-6, atol=0.0)
-
-
-def test_staged_bridge_matches_fused_bitwise(emission):
-    """yearly_activity_staged (separate jit units — the remote TPU
-    compile helper OOMs on the fused module once the Pallas merges are
-    inlined) must be BITWISE equal to yearly_activity_from_emission,
-    and its static-skip violation flag must fire when the skipped asset
-    actually sold shares."""
-    from letf_tpu.tax.device_bridge import yearly_activity_staged
-
-    res, years, B = emission
-    col = 1          # S8: trades both bridge assets
-    args = (res.tj_alloc[:, :, col], res.tj_value[:, :, col],
-            res.tj_price[:, :, col], res.tj_asset[:, :, col])
-    a1, n1, v1 = yearly_activity_from_emission(*args, n_years=years,
-                                               assets=(0, 1))
-    a2, n2, v2 = yearly_activity_staged(*args, n_years=years,
-                                        assets=(0, 1))
-    np.testing.assert_array_equal(np.asarray(a1), np.asarray(a2))
-    np.testing.assert_array_equal(np.asarray(n1), np.asarray(n2))
-    assert not bool(v1) and not bool(v2)
-    # S8 sells SPY: claiming TQQQ-only must raise the flag on BOTH paths.
-    _, _, v3 = yearly_activity_staged(*args, n_years=years, assets=(0,))
-    _, _, v4 = yearly_activity_from_emission(*args, n_years=years,
-                                             assets=(0,))
-    assert bool(v3) and bool(v4)
-
-
-def test_unit_staged_bridge_matches_fused_f32(emission):
-    """yearly_activity_units — the TPU production exact-tax structure:
-    every Pallas merge network its OWN jit module (a memory-degraded
-    remote compile helper SIGKILLs any module carrying two networks),
-    sorts via ops/pallas_sort.sort_bridge — must be BITWISE equal to the
-    fused f32 lax-sort path. Run with interpret-mode kernels (f32 only:
-    the sort kernels bitcast keys to i32)."""
-    from letf_tpu.tax.device_bridge import (
-        yearly_activity_from_emission,
-        yearly_activity_units,
-    )
-
-    res, years, B = emission
-    for col, assets in ((1, (0, 1)), (0, (0,))):   # S8 both legs; S7 one
-        args = tuple(
-            a[:, :, col] if a.dtype == jnp.int8
-            else a[:, :, col].astype(jnp.float32)
-            for a in (res.tj_alloc, res.tj_value, res.tj_price,
-                      res.tj_asset))
-        a1, n1, v1 = yearly_activity_from_emission(*args, n_years=years,
-                                                   assets=assets)
-        a2, n2, v2 = yearly_activity_units(*args, n_years=years,
-                                           assets=assets, interpret=True)
-        assert np.asarray(a2).dtype == np.float32
-        np.testing.assert_array_equal(np.asarray(a1), np.asarray(a2))
-        np.testing.assert_array_equal(np.asarray(n1), np.asarray(n2))
-        assert not bool(v1) and not bool(v2)
-    # Violated static-skip claim must fire through the unit path too.
-    args8 = tuple(
-        a[:, :, 1] if a.dtype == jnp.int8
-        else a[:, :, 1].astype(jnp.float32)
-        for a in (res.tj_alloc, res.tj_value, res.tj_price, res.tj_asset))
-    _, _, v = yearly_activity_units(*args8, n_years=years, assets=(0,),
-                                    interpret=True)
-    assert bool(v)

@@ -1,13 +1,12 @@
-"""Long-horizon envelope (VERDICT r4 next #7).
+"""Long-horizon envelope.
 
 The reference's TIME_HORIZONS include 40 and 50 years (letf/config.py:26)
 and SURVEY §5 sizes the time axis at up to ~13.9k days (50y·252 + 5y
 buffer), but every production artifact through round 4 stopped at 30y.
-These tests prove the envelope on the CPU mesh: the kernel/scan plans
-(spell capacity, window feasibility, signal rings) hold at 50y, the full
-engine runs end-to-end, and the tax bridge buckets 50 years. One TPU
-measurement of a 50y full-engine chunk lands in the bench record
-(bench.py long_horizon stage).
+These tests prove the envelope on the CPU mesh: the static plans (spell
+capacity, the offset window) hold at 50y, the full engine runs
+end-to-end, and the tax bridge buckets 50 years. bench.py's long_horizon
+stage times one 50y full-engine chunk on the GPU.
 """
 
 import jax
@@ -29,27 +28,27 @@ def test_horizon_menu_includes_40_and_50():
 
 
 def test_50y_plans_fit(model):
-    """Static plans at the envelope: regime spell capacity and the window
-    kernel's VMEM feasibility at 50y·252 + 5y buffer."""
-    from letf_tpu.ops.pallas_window import (
-        _plan_blocks,
-        _plan_blocks_4d,
-        fits_vmem,
-    )
-    from letf_tpu.ops.path_batched import plan_max_spells
+    """Static plans at the envelope: regime spell capacity, and the
+    shift-select window at 50y·252 + 5y buffer (offsets up to the whole
+    buffer, 11 shift levels) against NumPy slicing."""
+    from letf_tpu.ops.path_batched import plan_max_spells, window_series
 
-    T = 50 * 252 + 1260
+    S, buf = 50 * 252, 1260
+    T = S + buf
     ms = plan_max_spells(model, T)
     # Bound must cover the days with the model's min dwell (>= 1 day) but
     # stay static-shape sane (spell scan length is the compile-time cost).
     assert 0 < ms <= T
-    assert fits_vmem(T, 50 * 252)
-    db, nb = _plan_blocks(50 * 252, -(-1260 // 8) * 8)
-    assert db * nb >= 50 * 252
-    # Production horizons keep the direct-slab (single-read) window path:
-    # a feasible 4D plan (day_block >= max_off_pad within VMEM budget).
-    db4, nb4 = _plan_blocks_4d(50 * 252, -(-1260 // 8) * 8)
-    assert db4 >= -(-1260 // 8) * 8 and db4 * nb4 >= 50 * 252
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, T, 3))
+    vix, irx = rng.random((2, T)), rng.random((2, T))
+    regime = rng.integers(0, 2, (2, T)).astype(np.int32)
+    offs = np.array([buf - 1, 777], np.int32)
+    got = window_series(x, vix, irx, regime, offs, S)
+    for g, a in zip(got, (x[..., 0], x[..., 1], x[..., 2], vix, irx,
+                          regime)):
+        want = np.stack([a[b, o:o + S] for b, o in enumerate(offs)])
+        np.testing.assert_array_equal(np.asarray(g), want)
 
 
 def test_50y_full_engine_chunk(model):

@@ -276,16 +276,13 @@ def test_antithetic_pairs_share_base_id(model):
 
 def test_fault_tolerant_chunk_skip_and_retry(model, monkeypatch):
     """Per-chunk fault containment (VERDICT r2 missing #2): a chunk that
-    keeps failing is retried (with a poisoned-compile-cache purge on the
-    retryable signature), then skipped with NaN wealth and flagged; a
-    transient failure recovers on retry with full results."""
+    keeps failing is retried, then skipped with NaN wealth and flagged; a
+    transient failure recovers on retry with full results. No retry
+    touches the compile cache."""
     import letf_tpu.parallel.mc_runner as mcr
 
     real = mcr._mc_chunk
-    purges = {"n": 0}
-    monkeypatch.setattr(mcr, "_clear_poisoned_compile_cache",
-                        lambda: purges.__setitem__("n", purges["n"] + 1)
-                        or True)
+    cache_dir = jax.config.jax_compilation_cache_dir
     mesh = trial_mesh(jax.devices()[:1])
     kw = dict(num_simulations=12, seed=3, chunk_size=4, mesh=mesh,
               progress=False, fault_tolerant=True, chunk_timeout=120.0,
@@ -294,7 +291,7 @@ def test_fault_tolerant_chunk_skip_and_retry(model, monkeypatch):
     # --- permanent failure in the middle chunk: skip + flag ---
     def always_bad(model_, key, ids_c, anti_c, *a, **k):
         if int(np.asarray(ids_c)[0]) == 2:       # trials 4..7 -> base id 2
-            raise RuntimeError("INTERNAL: TPU backend error (injected)")
+            raise RuntimeError("INTERNAL: device error (injected)")
         return real(model_, key, ids_c, anti_c, *a, **k)
 
     monkeypatch.setattr(mcr, "_mc_chunk", always_bad)
@@ -305,7 +302,7 @@ def test_fault_tolerant_chunk_skip_and_retry(model, monkeypatch):
     assert np.isnan(out.final_wealth[4:8]).all()
     assert np.isfinite(out.final_wealth[:4]).all()
     assert np.isfinite(out.final_wealth[8:]).all()
-    assert purges["n"] >= 1                      # retryable signature purged
+    assert jax.config.jax_compilation_cache_dir == cache_dir
 
     # --- transient failure: retry recovers, nothing flagged ---
     flaky = {"raised": False}
@@ -313,7 +310,7 @@ def test_fault_tolerant_chunk_skip_and_retry(model, monkeypatch):
     def once_bad(model_, key, ids_c, anti_c, *a, **k):
         if not flaky["raised"] and int(np.asarray(ids_c)[0]) == 2:
             flaky["raised"] = True
-            raise RuntimeError("UNAVAILABLE: tunnel hiccup (injected)")
+            raise RuntimeError("UNAVAILABLE: transient failure (injected)")
         return real(model_, key, ids_c, anti_c, *a, **k)
 
     monkeypatch.setattr(mcr, "_mc_chunk", once_bad)

@@ -11,19 +11,21 @@ on the 1-core host.
 """
 
 import json
+import pathlib
 import subprocess
 import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 _CODE = r'''
 import os, sys, time, json
 os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
 os.environ["JAX_ENABLE_X64"] = "0"
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.getcwd())
 import jax
-jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/letf_tpu_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+from letf_tpu.utils.compile_cache import enable_compile_cache
+enable_compile_cache()
 import numpy as np
 from letf_tpu.models.params import default_sim_model
 from letf_tpu.parallel.mc_runner import run_monte_carlo
@@ -55,7 +57,7 @@ print("RESULT " + json.dumps(out))
 
 
 def test_sharded_equals_single_8192x10y():
-    res = subprocess.run([sys.executable, "-c", _CODE], cwd="/root/repo",
+    res = subprocess.run([sys.executable, "-c", _CODE], cwd=ROOT,
                          capture_output=True, text=True, timeout=1500)
     assert res.returncode == 0, res.stderr[-2000:]
     line = [ln for ln in res.stdout.splitlines()

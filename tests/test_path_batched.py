@@ -1,5 +1,5 @@
-"""Lane-packed batched engine: equivalence with the per-trial engine and
-distributional correctness of the fast samplers."""
+"""Batched engine: equivalence with the per-trial engine, distributional
+correctness of the fast samplers, and the shift-select window."""
 
 import jax
 import jax.numpy as jnp
@@ -24,7 +24,7 @@ def model():
 
 
 def test_batched_equals_vmapped_per_trial(model):
-    """With identical innovations (fast_draws=False), the lane-packed
+    """With identical innovations (fast_draws=False), the batched
     engine must reproduce the per-trial vmapped engine."""
     B, S = 8, 252
     ids = jnp.arange(B, dtype=jnp.int32) // 2
@@ -106,23 +106,6 @@ def test_repair_pass_bounds_invalid_paths(model):
                                   np.asarray(path.valid))
 
 
-def test_window_offsets_pallas_interpret_exact():
-    """The Pallas windowing kernel is pure data movement: interpret-mode
-    output must equal the gather bit-for-bit (incl. NaN payloads)."""
-    from letf_tpu.ops.pallas_window import window_offsets_pallas
-
-    T, S, C, B = 380, 256, 4, 256
-    x = jax.random.normal(jax.random.key(0), (C, T, B), jnp.float32)
-    x = x.at[0, 3, 7].set(jnp.nan)
-    offs = np.random.default_rng(1).integers(0, T - S + 1, B).astype(np.int32)
-    offs[0], offs[1] = 0, T - S
-    ref = jnp.take_along_axis(
-        x, jnp.asarray(offs)[None, None, :] + jnp.arange(S)[None, :, None],
-        axis=1)
-    got = window_offsets_pallas(x, jnp.asarray(offs), S, interpret=True)
-    np.testing.assert_array_equal(np.asarray(ref), np.asarray(got))
-
-
 def test_chi2_from_normal_quantile_exact():
     """The Chebyshev log-quantile sampler must match scipy's chi-square
     quantile function to <2e-4 relative across +-6.2 sigma for the nu range
@@ -193,463 +176,35 @@ def test_plan_max_spells_bitwise(model):
     np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_pallas_joint_kernel_interpret():
-    """The counter-based joint kernel is pure arithmetic (no TPU PRNG), so
-    interpret mode runs on CPU: checks output shapes, finiteness, VIX floor,
-    antithetic pair mirroring of the first-day joint shock, and
-    batch-layout-independent replay (counter-based draws)."""
-    import numpy as np
+@pytest.mark.parametrize("case", ["zero", "max", "random_nan", "no_buffer"])
+def test_window_series_matches_numpy_slicing(case):
+    """window_series' binary shift-select tree is pure data movement:
+    out[b, s] = in[b, s + offset[b]] bit for bit (NaN payloads included),
+    against plain NumPy slicing per trial."""
+    from letf_tpu.ops.path_batched import window_series
 
-    from letf_tpu.models.params import default_sim_model
-    from letf_tpu.ops.pallas_joint import _pack_params
-    from letf_tpu.ops import pallas_joint as pj
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    import functools as ft
-
-    model = default_sim_model()
-    B, T = 1024, 16
-    regime = jnp.zeros((B, T), jnp.int32)
-    ids = (jnp.arange(B, dtype=jnp.int32) // 2)
-    signs = jnp.where(jnp.arange(B) % 2 == 1, -1.0, 1.0).astype(jnp.float32)
-    seed = jnp.asarray([123, 456], jnp.int32)
-    params = jnp.asarray(np.asarray(_pack_params(model), np.float32))
-    cheb = jnp.asarray(model.joint.chi_cheb, jnp.float32)
-
-    def run(regime, ids, signs):
-        G = B // pj.TILE
-        reg = (regime.astype(jnp.int8).reshape(G, 8, 128, T)
-               .transpose(0, 3, 1, 2))
-        idr = ids.reshape(G, 8, 128)
-        sgr = signs.reshape(G, 8, 128)
-        kernel = ft.partial(pj._joint_kernel, day_block=T, n_blocks=1,
-                            n_cheb=cheb.shape[1])
-        out_spec = pl.BlockSpec((1, T, 8, 128), lambda g, j: (g, j, 0, 0),
-                                memory_space=pltpu.VMEM)
-        shp = jax.ShapeDtypeStruct((G, T, 8, 128), jnp.float32)
-        outs = pl.pallas_call(
-            kernel, grid=(G, 1),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3 + [
-                pl.BlockSpec((1, 8, 128), lambda g, j: (g, 0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, 8, 128), lambda g, j: (g, 0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, T, 8, 128), lambda g, j: (g, j, 0, 0),
-                             memory_space=pltpu.VMEM)],
-            out_specs=(out_spec,) * 5, out_shape=(shp,) * 5,
-            scratch_shapes=[pltpu.VMEM((14, 8, 128), jnp.float32)],
-            interpret=True,
-        )(seed, params, cheb, idr, sgr, reg)
-        return [o.transpose(0, 2, 3, 1).reshape(B, T) for o in outs]
-
-    x0, x1, x2, vix, irx = run(regime, ids, signs)
-    for a in (x0, x1, x2, vix, irx):
-        assert np.isfinite(np.asarray(a)).all()
-    assert float(jnp.min(vix[:, 1:])) >= 10.0
-    # Day-0 joint shock mirrors across the pair around the regime mean
-    # (same draws, negated normals, same chi mixing).
-    mu0 = float(model.joint.mu[0][0])
-    d0 = np.asarray(x0[:, 0])
-    np.testing.assert_allclose(d0[0::2] - mu0, -(d0[1::2] - mu0),
-                               rtol=1e-4, atol=1e-7)
-    # Counter-based draws: trial 7's path is identical when the batch is
-    # reshuffled (ids rolled by 10 positions).
-    x0b, *_ = run(regime, jnp.roll(ids, 10), jnp.roll(signs, 10))
-    np.testing.assert_array_equal(np.asarray(x0b[10 + 4]),
-                                  np.asarray(x0[4]))
-
-
-def test_pallas_compose_kernel_interpret():
-    """Phase-2 compose kernel (stress + TE + LETF composition) in interpret
-    mode: finiteness, return bounds, stress-channel bounds, and
-    batch-position-independent replay."""
-    import numpy as np
-
-    from letf_tpu import config as cfg
-    from letf_tpu.models.params import default_sim_model
-    from letf_tpu.ops import pallas_compose as pc
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    import functools as ft
-
-    model = default_sim_model()
-    B, S = 1024, 16
-    key = jax.random.key(3)
-    spy = 0.01 * jax.random.normal(key, (B, S), jnp.float32)
-    qqq = 1.1 * spy
-    tlt = -0.1 * spy
-    vix = jnp.full((B, S), 22.0, jnp.float32)
-    irx = jnp.full((B, S), 4.0, jnp.float32)
-    regime = jnp.zeros((B, S), jnp.int32)
-    ids = jnp.arange(B, dtype=jnp.int32) // 2
-    seed = jnp.asarray([9, 11], jnp.int32)
-
-    def run(ids, roll=0):
-        spy_r = jnp.roll(spy, roll, axis=0)
-        qqq_r = jnp.roll(qqq, roll, axis=0)
-        tlt_r = jnp.roll(tlt, roll, axis=0)
-        G = B // pc.TILE
-        sp = pc._pack_stress_params(model)
-        ap = pc._pack_asset_params(model)
-        und = tuple(int(i) for i in cfg.asset_table().underlying)
-
-        def slab(a, dt=jnp.float32):
-            return (a.astype(dt).reshape(G, 8, 128, S).transpose(0, 3, 1, 2))
-
-        ins = [slab(spy_r), slab(qqq_r), slab(tlt_r), slab(vix), slab(irx),
-               slab(regime, jnp.int8)]
-        blk = pl.BlockSpec((1, S, 8, 128), lambda g, j: (g, j, 0, 0),
-                           memory_space=pltpu.VMEM)
-        shp = jax.ShapeDtypeStruct((G, S, 8, 128), jnp.float32)
-
-        def wrapped(seed_ref, sp_ref, ap_ref, ids_ref, s0, s1, s2, s3, s4,
-                    s5, e0, e1, e2, e3, e4, e5, spya, qqqa, cash, summ,
-                    state):
-            pc._compose_kernel(seed_ref, sp_ref, ap_ref, ids_ref,
-                               s0, s1, s2, s3, s4, s5,
-                               (e0, e1, e2, e3, e4, e5, spya, qqqa, cash,
-                                summ), state, day_block=S, n_blocks=1,
-                               use_stress=True, use_funding=True,
-                               und_idx=und)
-
-        outs = pl.pallas_call(
-            wrapped, grid=(G, 1),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3 + [
-                pl.BlockSpec((1, 8, 128), lambda g, j: (g, 0, 0),
-                             memory_space=pltpu.VMEM)] + [blk] * 6,
-            out_specs=tuple([blk] * 9) + (
-                pl.BlockSpec((1, 8, 8, 128), lambda g, j: (g, 0, 0, 0),
-                             memory_space=pltpu.VMEM),),
-            out_shape=tuple([shp] * 9) + (
-                jax.ShapeDtypeStruct((G, 8, 8, 128), jnp.float32),),
-            scratch_shapes=[pltpu.VMEM((18, 8, 128), jnp.float32)],
-            interpret=True,
-        )(seed, sp, ap, ids.reshape(G, 8, 128), *ins)
-        return [o.transpose(0, 2, 3, 1).reshape(B, -1) for o in outs[:9]]
-
-    outs = run(ids)
-    for a in outs:
-        arr = np.asarray(a)
-        assert np.isfinite(arr).all()
-    for c in range(6):
-        etf = np.asarray(outs[c])
-        assert (etf >= -0.999).all() and (etf <= 10.0).all()
-    # Counter-based: trial 4's etf identical with rolled batch layout
-    # (ids and input streams rolled together).
-    outs2 = run(jnp.roll(ids, 10), roll=10)
-    np.testing.assert_array_equal(np.asarray(outs2[0][10 + 4]),
-                                  np.asarray(outs[0][4]))
-
-
-@pytest.mark.skipif(jax.devices()[0].platform != "tpu",
-                    reason="slab chunk composes TPU-only kernels (joint/"
-                           "compose/strategies); equality vs the [B,S] "
-                           "kernel path is exercised on hardware")
-def test_slab_chunk_matches_kernel_path():
-    """The slab-native chunk (ops/slab_chunk.py) composes the SAME kernels
-    as generate_paths_batched + compute_signals + run_strategies_batch —
-    identical draws, different tensor layout — so summaries must match up
-    to signal-cumsum reassociation ulps (borderline trade flips allowed on
-    a tiny fraction of cells)."""
-    from letf_tpu.models.params import default_sim_model
-    from letf_tpu.ops.path_batched import generate_paths_batched
-    from letf_tpu.ops.slab_chunk import slab_chunk_summaries
-    from letf_tpu.strategies.engine import run_strategies_batch
-    from letf_tpu.strategies.signals import compute_signals
-
-    model = default_sim_model()
-    B, years = 2048, 2
-    S, buf = years * 252, 504
-    ids = jnp.arange(B, dtype=jnp.int32) // 2
-    anti = (jnp.arange(B) % 2).astype(bool)
-    key = jax.random.key(11)
-
-    p = generate_paths_batched(model, key, ids, anti, sim_days=S,
-                               buffer_days=buf, random_start_method="offset")
-    r = run_strategies_batch(p, compute_signals(p), apply_costs=True)
-    sm = slab_chunk_summaries(model, key, ids, anti, sim_days=S,
-                              buffer_days=buf, random_start_method="offset")
-
-    fw, nt = np.asarray(sm["final_wealth"]), np.asarray(sm["num_trades"])
-    rw, rt = np.asarray(r.final_wealth), np.asarray(r.num_trades)
-    rel = np.abs(fw - rw) / np.maximum(np.abs(rw), 1.0)
-    # The fused kernel computes signals from exact ring-buffer window sums
-    # while the XLA path uses cumsum differences; threshold-crossing trade
-    # decisions flip on those ulps for a small fraction of cells. The
-    # typical cell matches tightly and the percentile fan is unmoved.
-    assert float(np.median(rel)) < 1e-5
-    assert float((rel > 1e-3).mean()) < 0.01
-    assert float((nt != rt).mean()) < 0.05
-    for q in (10, 50, 90):
-        a = np.percentile(fw, q, axis=0)
-        b = np.percentile(rw, q, axis=0)
-        np.testing.assert_allclose(a, b, rtol=5e-3, atol=1e-2)
-    np.testing.assert_array_equal(np.asarray(sm["valid"]),
-                                  np.asarray(p.valid))
-    np.testing.assert_array_equal(np.asarray(sm["jump_days"]),
-                                  np.asarray(p.jump_days))
-    np.testing.assert_allclose(np.asarray(sm["liq_mean"]),
-                               np.asarray(p.liq_mean), atol=1e-6)
-
-
-def test_window_offsets_slab_interpret_exact():
-    """Slab-layout windowing (manual-DMA kernel) is pure data movement:
-    interpret-mode output must equal the gather bit-for-bit."""
-    from letf_tpu.ops.pallas_window import window_offsets_slab
-
-    G, T, S = 2, 380, 256
-    B = G * 1024
-    x = jax.random.normal(jax.random.key(0), (G, T, 8, 128), jnp.float32)
-    x = x.at[1, 5, 3, 7].set(jnp.nan)
-    offs = np.random.default_rng(2).integers(0, T - S + 1, B).astype(np.int32)
-    offs[0], offs[-1] = 0, T - S
-    got = window_offsets_slab(x, jnp.asarray(offs), S, interpret=True)
-    xb = np.asarray(x).transpose(0, 2, 3, 1).reshape(B, T)   # [B, T]
-    ref = np.take_along_axis(
-        xb, offs[:, None] + np.arange(S)[None, :], axis=1)
-    got_b = np.asarray(got).transpose(0, 2, 3, 1).reshape(B, S)
-    np.testing.assert_array_equal(ref, got_b)
-
-    # Per-lane bias rides the output store: bitwise window(x) + b.
-    bias = jax.random.normal(jax.random.key(7), (G, 8, 128), jnp.float32)
-    got2 = window_offsets_slab(x, jnp.asarray(offs), S, interpret=True,
-                               bias=bias)
-    bias_b = np.asarray(bias).reshape(G * 8 * 128)           # [B]
-    got2_b = np.asarray(got2).transpose(0, 2, 3, 1).reshape(B, S)
-    np.testing.assert_array_equal(ref + bias_b[:, None], got2_b)
-
-
-def test_window_offsets_slab_4d_multiblock_exact(monkeypatch):
-    """The direct-slab kernel's reversed-grid tail carry (block b's
-    lookahead = block b+1's head, saved in scratch across grid steps) is
-    only exercised with >= 2 day blocks — force a tiny row budget so the
-    planner splits, and check bit-exactness incl. NaN payloads. Also pin
-    the fallback: day_block < max_off_pad must route to the transpose
-    path and still be exact."""
-    from letf_tpu.ops import pallas_window as pw
-
-    G, T, S = 2, 380, 256
-    B = G * 1024
-    x = jax.random.normal(jax.random.key(3), (G, T, 8, 128), jnp.float32)
-    x = x.at[0, 17, 2, 5].set(jnp.nan)
-    offs = np.random.default_rng(5).integers(0, T - S + 1, B).astype(np.int32)
-    offs[0], offs[-1] = 0, T - S
-    xb = np.asarray(x).transpose(0, 2, 3, 1).reshape(B, T)
-    ref = np.take_along_axis(
-        xb, offs[:, None] + np.arange(S)[None, :], axis=1)
-
-    # max_off_pad = 128; 4D budget 1200 -> day_block 128, n_blocks 2
-    # (>= 2 blocks, day_block >= max_off_pad: the 4D tail-carry path).
-    monkeypatch.setattr(pw, "_ROW_BUDGET_4D", 1200)
-    assert pw._plan_blocks_4d(S, 128) == (128, 2)
-    got = pw.window_offsets_slab(x, jnp.asarray(offs), S, interpret=True)
-    got_b = np.asarray(got).transpose(0, 2, 3, 1).reshape(B, S)
-    np.testing.assert_array_equal(ref, got_b)
-
-    # Shorter window: day_block (96) < max_off_pad (288) -> no feasible
-    # 4D plan -> transpose fallback, still bit-exact.
-    S2 = 96
-    monkeypatch.setattr(pw, "_ROW_BUDGET_4D", 15360)
-    assert pw._plan_blocks_4d(S2, -(-(T - S2) // 8) * 8) == (0, 0)
-    offs2 = np.random.default_rng(6).integers(0, T - S2 + 1, B)
-    ref2 = np.take_along_axis(
-        xb, offs2[:, None] + np.arange(S2)[None, :], axis=1)
-    got2 = pw.window_offsets_slab(
-        x, jnp.asarray(offs2.astype(np.int32)), S2, interpret=True)
-    got2_b = np.asarray(got2).transpose(0, 2, 3, 1).reshape(B, S2)
-    np.testing.assert_array_equal(ref2, got2_b)
-
-
-@pytest.mark.skipif(jax.devices()[0].platform != "tpu",
-                    reason="slab chunk composes TPU-only kernels")
-def test_slab_chunk_overlays_match_kernel_path():
-    """Slab chunk with a DCA cashflow schedule and a historical-anchor
-    start pool must track the [B,S] kernel path the same way the plain
-    config does (same draws; signal-ulp trade flips only)."""
-    from letf_tpu.models.params import default_sim_model
-    from letf_tpu.ops.path_batched import generate_paths_batched
-    from letf_tpu.ops.slab_chunk import slab_chunk_summaries
-    from letf_tpu.strategies.engine import dca_schedule, run_strategies_batch
-    from letf_tpu.strategies.signals import compute_signals
-
-    model = default_sim_model()
-    B, S = 2048, 504
-    ids = jnp.arange(B, dtype=jnp.int32) // 2
-    anti = (jnp.arange(B) % 2).astype(bool)
-    key = jax.random.key(13)
-    cf = jnp.asarray(dca_schedule(S, 750.0), jnp.float32)
-    anchors = (jnp.asarray(np.arange(400) % 2, jnp.int32),
-               jnp.asarray(15.0 + (np.arange(400) % 20), jnp.float32))
-
-    p = generate_paths_batched(model, key, ids, anti, sim_days=S,
-                               buffer_days=0,
-                               random_start_method="historical_anchor",
-                               anchors=anchors)
-    r = run_strategies_batch(p, compute_signals(p), apply_costs=True,
-                             cashflows=cf)
-    sm = slab_chunk_summaries(model, key, ids, anti, sim_days=S,
-                              buffer_days=0,
-                              random_start_method="historical_anchor",
-                              anchors=anchors, cashflows=cf)
-    fw, rw = np.asarray(sm["final_wealth"]), np.asarray(r.final_wealth)
-    rel = np.abs(fw - rw) / np.maximum(np.abs(rw), 1.0)
-    assert float(np.median(rel)) < 1e-5
-    assert float((rel > 1e-3).mean()) < 0.01
-    np.testing.assert_array_equal(np.asarray(sm["start_regime"]),
-                                  np.asarray(p.start_regime))
-    np.testing.assert_array_equal(np.asarray(sm["valid"]),
-                                  np.asarray(p.valid))
-
-
-def test_pallas_compose_strategies_fused_interpret():
-    """The single compose+signals+strategies kernel must match the
-    two-kernel chain (compose -> fused-signals strategies) on identical
-    windowed inputs: same counter-based draws, so trades/jump/liq are
-    exact and wealth agrees to f32 fusion ulps."""
-    from letf_tpu import config as cfg
-    from letf_tpu.models.params import default_sim_model
-    from letf_tpu.ops.pallas_compose import (
-        _pack_asset_params,
-        _pack_stress_params,
-        pallas_compose_generate,
-    )
-    from letf_tpu.ops.pallas_strategies import (
-        pallas_compose_strategies_run,
-        pallas_strategies_run,
-    )
-
-    model = default_sim_model()
-    G, S = 1, 64
-    B = G * 1024
-    key = jax.random.key(3)
-    spy = 0.01 * jax.random.normal(key, (G, S, 8, 128), jnp.float32)
-    qqq = 1.1 * spy
-    tlt = -0.1 * spy
-    vix = jnp.full((G, S, 8, 128), 22.0, jnp.float32)
-    irx = jnp.full((G, S, 8, 128), 4.0, jnp.float32)
-    regime = jnp.zeros((G, S, 8, 128), jnp.float32)
-    ids = jnp.arange(B, dtype=jnp.int32) // 2
-    seed = jnp.asarray([9, 11], jnp.int32)
-    sp = _pack_stress_params(model)
-    ap = _pack_asset_params(model)
-
-    etf, _, _, cash, jc, ls, cs = pallas_compose_generate(
-        sp, ap, ids, seed, spy, qqq, tlt, vix, irx, regime,
-        sim_days=S, layout="slab", day_block=S, interpret=True)
-    idx = [cfg.ASSET_INDEX[k] for k in ("TQQQ", "SPY", "SSO", "TMF")]
-    rep = [jnp.clip(jnp.where(jnp.isfinite(e), e, 0.0), -0.999, 10.0)
-           for e in etf]
-    chs = [rep[idx[0]], rep[idx[1]], rep[idx[2]], rep[idx[3]],
-           cash, regime, vix]
-    fw0, nt0, mdd0 = pallas_strategies_run(
-        chs, apply_costs=True, layout="slab", fused_signals=True,
-        interpret=True)
-    (fw1, nt1, mdd1, fin, jd, l1, c1, vmin, vmax,
-     rhi) = pallas_compose_strategies_run(
-        sp, ap, ids, seed, spy, qqq, tlt, vix, irx, regime, sim_days=S,
-        apply_costs=True, interpret=True)
-    # In-kernel validity summaries match the direct slab reductions.
-    np.testing.assert_array_equal(np.asarray(vmin),
-                                  np.full(B, 22.0, np.float32))
-    np.testing.assert_array_equal(np.asarray(vmax),
-                                  np.full(B, 22.0, np.float32))
-    np.testing.assert_array_equal(np.asarray(rhi), np.zeros(B, np.int32))
-    np.testing.assert_allclose(np.asarray(fw1), np.asarray(fw0),
-                               rtol=1e-5, atol=0.05)
-    np.testing.assert_array_equal(np.asarray(nt1), np.asarray(nt0))
-    np.testing.assert_array_equal(np.asarray(jd),
-                                  np.asarray(jc).astype(np.int32))
-    np.testing.assert_allclose(np.asarray(l1), np.asarray(ls), atol=1e-5)
-    assert np.asarray(fin).all()
-
-
-def test_joint_hoisted_draws_bitwise_interpret():
-    """Hoisted-draw mode (vectorized whole-day-block draw pass into VMEM
-    scratch) must reproduce the inline per-day path BITWISE: the fill
-    runs the same elementwise instructions, just at [day_block, sub, 128]
-    granularity."""
-    from letf_tpu.ops import pallas_joint as pj
-    from letf_tpu.ops.pallas_joint import _pack_params, pallas_joint_generate
-    from letf_tpu.ops.path_engine import _to_device
-
-    model = _to_device(jax.tree.map(jnp.asarray, default_sim_model()))
-    B, T = 1024, 126
-    regime = jnp.asarray(
-        (np.random.default_rng(0).random((B, T)) < 0.2).astype(np.int32))
-    ids = jnp.arange(B, dtype=jnp.int32) // 2
-    signs = jnp.where(jnp.arange(B) % 2 == 1, -1.0, 1.0).astype(jnp.float32)
-    seed = jnp.asarray([123, 456], jnp.int32)
-    params = _pack_params(model)
-    cheb = jnp.asarray(model.joint.chi_cheb, jnp.float32)
-
-    def run():
-        return pallas_joint_generate(params, cheb, regime, ids, signs,
-                                     seed, T, day_block=63, interpret=True)
-
-    saved = pj._HOIST_DRAWS
-    try:
-        pj._HOIST_DRAWS = False
-        pallas_joint_generate.clear_cache()
-        a = [np.asarray(x) for x in run()]
-        pj._HOIST_DRAWS = True
-        pallas_joint_generate.clear_cache()
-        b = [np.asarray(x) for x in run()]
-    finally:
-        pj._HOIST_DRAWS = saved
-        pallas_joint_generate.clear_cache()
-    for i, (x, y) in enumerate(zip(a, b)):
-        np.testing.assert_array_equal(x, y, err_msg=f"output {i}")
-
-
-def test_fused_hoisted_draws_parity_interpret():
-    """Hoisted draws in the fused compose+strategies kernel: integer and
-    accumulator summaries (trades, jump days, liq/cred sums, VIX range,
-    regime days) must be bitwise equal to the inline path; wealth/maxdd
-    may differ by f32 ulps only (XLA compiles the t-draw transcendentals
-    shape-dependently on CPU — Box-Muller channels are bitwise)."""
-    from letf_tpu.ops import pallas_strategies as ps
-    from letf_tpu.ops.pallas_compose import (
-        _pack_asset_params,
-        _pack_stress_params,
-    )
-    from letf_tpu.ops.pallas_strategies import pallas_compose_strategies_run
-
-    model = default_sim_model()
-    G, S = 1, 126
-    B = G * 1024
-    key = jax.random.key(3)
-    spy = 0.01 * jax.random.normal(key, (G, S, 8, 128), jnp.float32)
-    qqq = 1.1 * spy
-    tlt = -0.1 * spy
-    vix = jnp.full((G, S, 8, 128), 22.0, jnp.float32) + spy * 100
-    irx = jnp.full((G, S, 8, 128), 4.0, jnp.float32)
-    regime = (spy > 0.005).astype(jnp.float32)
-    ids = jnp.arange(B, dtype=jnp.int32) // 2
-    seed = jnp.asarray([9, 11], jnp.int32)
-    sp = _pack_stress_params(model)
-    ap = _pack_asset_params(model)
-
-    def run():
-        return pallas_compose_strategies_run(
-            sp, ap, ids, seed, spy, qqq, tlt, vix, irx, regime,
-            sim_days=S, apply_costs=True, day_block=63, interpret=True)
-
-    saved = ps._HOIST_DRAWS
-    try:
-        ps._HOIST_DRAWS = False
-        pallas_compose_strategies_run.clear_cache()
-        a = [np.asarray(x) for x in run()]
-        ps._HOIST_DRAWS = True
-        pallas_compose_strategies_run.clear_cache()
-        b = [np.asarray(x) for x in run()]
-    finally:
-        ps._HOIST_DRAWS = saved
-        pallas_compose_strategies_run.clear_cache()
-    names = ["fw", "nt", "mdd", "fin", "jd", "liq", "cred", "vmin",
-             "vmax", "rhi"]
-    for n, x, y in zip(names, a, b):
-        if n in ("fw", "mdd"):
-            np.testing.assert_allclose(x, y, rtol=2e-5, atol=1e-5,
-                                       err_msg=n)
-        else:
-            np.testing.assert_array_equal(x, y, err_msg=n)
+    rng = np.random.default_rng(4)
+    B, S = 6, 40
+    T = S if case == "no_buffer" else S + 37
+    x = rng.normal(size=(B, T, 3))
+    vix = 20.0 + rng.normal(size=(B, T))
+    irx = rng.random((B, T))
+    regime = rng.integers(0, 2, (B, T)).astype(np.int32)
+    if case == "zero" or case == "no_buffer":
+        offs = np.zeros(B, np.int32)
+    elif case == "max":
+        offs = np.full(B, T - S, np.int32)
+    else:
+        offs = rng.integers(0, T - S + 1, B).astype(np.int32)
+        offs[0], offs[1] = 0, T - S
+        x[2, offs[2] + 5, 1] = np.nan
+        vix[3, offs[3] + S - 1] = np.inf
+    got = window_series(jnp.asarray(x), jnp.asarray(vix), jnp.asarray(irx),
+                        jnp.asarray(regime), jnp.asarray(offs), S)
+    want = [np.stack([a[b, o:o + S] for b, o in enumerate(offs)])
+            for a in (x[..., 0], x[..., 1], x[..., 2], vix, irx, regime)]
+    for name, g, w in zip(("spy", "qqq", "tlt", "vix", "irx", "regime"),
+                          got, want):
+        assert g.shape == (B, S), name
+        np.testing.assert_array_equal(np.asarray(g), w, err_msg=name)
+    assert np.asarray(got[5]).dtype == np.int32

@@ -183,82 +183,3 @@ def test_withdrawal_ruin_floors_at_zero(batch):
     wd = run_all(path, cashflows=withdrawal_schedule(S, 1e6))
     assert bool(jnp.all(wd.final_wealth >= 0.0))
     assert bool(jnp.any(wd.final_wealth == 0.0))
-
-
-# ---------------------------------------------------------------------------
-# Phase-3 Pallas strategy kernel vs the XLA scan (interpret mode on CPU)
-# ---------------------------------------------------------------------------
-
-def test_pallas_strategies_kernel_interpret_matches_scan():
-    """The strategy kernel (ops/pallas_strategies.py) is a restatement of
-    the XLA scan body on identical [B, S] channel inputs — same f32 math,
-    so wealth/trades/max-DD must match the scan tightly (incl. the NaN
-    min_periods warm-up region, day-0 quirks, and the DCA overlay)."""
-    from letf_tpu.ops.pallas_strategies import pallas_strategies_run, channels_from
-    from letf_tpu.ops.path_batched import generate_paths_batched
-    from letf_tpu.strategies.engine import dca_schedule, run_strategies_batch
-    from letf_tpu.strategies.signals import compute_signals
-
-    model = default_sim_model()
-    B, S = 1024, 256
-    path = generate_paths_batched(
-        model, jax.random.key(5), jnp.arange(B, dtype=jnp.int32) // 2,
-        (jnp.arange(B) % 2).astype(bool), sim_days=S, buffer_days=0,
-        random_start_method="regime_only")
-    # f32 everywhere: the kernel is f32-only; run the scan in f32 too so
-    # the comparison isolates kernel-vs-scan, not dtype.
-    to32 = lambda a: (a.astype(jnp.float32)  # noqa: E731
-                      if a.dtype in (jnp.float64, jnp.float32) else a)
-    path32 = jax.tree.map(to32, path)
-    sig32 = jax.tree.map(to32, compute_signals(path32))
-
-    for cf in (None, jnp.asarray(dca_schedule(S, 500.0), jnp.float32)):
-        ref = run_strategies_batch(path32, sig32, apply_costs=True,
-                                   cashflows=cf, strategy_kernel="off")
-        fw, nt, mdd = pallas_strategies_run(
-            channels_from(path32, sig32), cashflows=cf, apply_costs=True,
-            interpret=True)
-        np.testing.assert_allclose(np.asarray(fw),
-                                   np.asarray(ref.final_wealth),
-                                   rtol=2e-5, atol=1e-4)
-        np.testing.assert_array_equal(np.asarray(nt),
-                                      np.asarray(ref.num_trades))
-        np.testing.assert_allclose(np.asarray(mdd), np.asarray(ref.max_dd),
-                                   rtol=1e-5, atol=1e-5)
-
-
-def test_pallas_strategies_fused_signals_interpret():
-    """Fused-signals mode computes the 16 rolling signals in-kernel from
-    ring-buffer window sums. vs the XLA signals+scan: NaN warmup structure
-    identical, typical wealth matches to f32 ulps, and only a small
-    fraction of threshold-crossing trade decisions may flip (exact window
-    sums vs cumsum differences)."""
-    from letf_tpu.ops.pallas_strategies import (
-        channels_from,
-        pallas_strategies_run,
-    )
-    from letf_tpu.ops.path_batched import generate_paths_batched
-    from letf_tpu.strategies.engine import run_strategies_batch
-    from letf_tpu.strategies.signals import compute_signals
-
-    model = default_sim_model()
-    B, S = 1024, 320
-    path = generate_paths_batched(
-        model, jax.random.key(5), jnp.arange(B, dtype=jnp.int32) // 2,
-        (jnp.arange(B) % 2).astype(bool), sim_days=S, buffer_days=0,
-        random_start_method="regime_only")
-    to32 = lambda a: (a.astype(jnp.float32)  # noqa: E731
-                      if a.dtype in (jnp.float64, jnp.float32) else a)
-    path32 = jax.tree.map(to32, path)
-    sig32 = jax.tree.map(to32, compute_signals(path32))
-    ref = run_strategies_batch(path32, sig32, apply_costs=True,
-                               strategy_kernel="off")
-    fw, nt, mdd = pallas_strategies_run(
-        channels_from(path32, sig32)[:7], apply_costs=True, interpret=True,
-        fused_signals=True)
-    fw, nt = np.asarray(fw), np.asarray(nt)
-    rw, rt = np.asarray(ref.final_wealth), np.asarray(ref.num_trades)
-    rel = np.abs(fw - rw) / np.maximum(np.abs(rw), 1.0)
-    assert float(np.median(rel)) < 1e-5
-    assert float((rel > 1e-2).mean()) < 0.001
-    assert float((nt != rt).mean()) < 0.02
